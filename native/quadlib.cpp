@@ -2,7 +2,7 @@
 // barycentric interpolation/integration matrix builders.
 //
 // Role: the reference delegates native numerics to its dependencies
-// (IPOPT/MUMPS/CasADi C++); the TPU build's solver is JAX/XLA on-device,
+// (IPOPT/MUMPS/CasADi C++); this package's solver is JAX/XLA on-device,
 // and this library provides the *host-side* native runtime pieces: the
 // collocation tables are generated with 80-bit long-double Newton
 // iteration on the Legendre polynomials (numpy's companion-matrix root

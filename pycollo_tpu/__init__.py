@@ -1,4 +1,4 @@
-"""pycollo_tpu: a TPU-native multiphase optimal control framework.
+"""pycollo_tpu: an on-device multiphase optimal control framework.
 
 A from-scratch reimplementation of the capabilities of pycollo (direct
 orthogonal collocation for multiphase optimal control) built on
@@ -14,9 +14,7 @@ Public API parity with ``pycollo/__init__.py:1-16``.
 
 import jax as _jax
 
-# The collocation/IPM numerics require double precision; TPU supports f64
-# matmul/cholesky/triangular-solve (only LU is unavailable, which the
-# condensed-space solver avoids by design).
+# The collocation/IPM numerics require double precision.
 _jax.config.update("jax_enable_x64", True)
 
 from .bounds import EndpointBounds, PhaseBounds          # noqa: E402,F401

@@ -6,8 +6,8 @@ section sizes, and nodes per section (default = collocation_points_min).
 
 ``PhaseMeshTables`` replaces the reference's per-iteration sparse-matrix mesh
 (``pycollo/mesh.py:204-356``) with *dense* defect/integration operator
-matrices: on TPU the (num_defect, N) operators are applied as plain matmuls,
-which XLA tiles onto the MXU and which batch trivially over problem
+matrices: the (num_defect, N) operators are applied as plain matmuls,
+which XLA hands to the matrix units and which batch trivially over problem
 instances.  The block-banded sparsity is recovered later by the structured
 KKT factorization, not by sparse matrix formats.
 """

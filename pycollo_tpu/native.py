@@ -1,7 +1,8 @@
 """ctypes bindings for the native C++ numerics library.
 
-Loads ``native/libpycollo_tpu_native.so`` (building it with the repo's
-Makefile on first use if a compiler is available) and exposes the
+Builds ``native/libpycollo_tpu_native.so`` with the repo's Makefile on
+first use (``make`` rebuilds it whenever ``quadlib.cpp`` is newer, so a
+stale binary is never loaded), loads it, and exposes the
 high-precision quadrature root finders and the barycentric interpolation
 matrix builder.  Every entry point has a numpy fallback so the package
 works without a C++ toolchain; :mod:`pycollo_tpu.quadrature` prefers the
@@ -11,7 +12,6 @@ native implementations when present.
 from __future__ import annotations
 
 import ctypes
-import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -25,24 +25,25 @@ _lib: Optional[ctypes.CDLL] = None
 _load_attempted = False
 
 
-def _try_build() -> bool:
+def _build() -> bool:
+    """Run the Makefile; True if the library is up to date afterwards."""
     if not (_NATIVE_DIR / "quadlib.cpp").exists():
         return False
     try:
         subprocess.run(["make", "-C", str(_NATIVE_DIR)], check=True,
                        capture_output=True, timeout=120)
-        return _LIB_PATH.exists()
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    return _LIB_PATH.exists()
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """Load (building if needed) the native library, or None."""
+    """Build (if out of date) and load the native library, or None."""
     global _lib, _load_attempted
     if _lib is not None or _load_attempted:
         return _lib
     _load_attempted = True
-    if not _LIB_PATH.exists() and not _try_build():
+    if not _build():
         return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))

@@ -8,7 +8,7 @@ initial mesh -> guess -> first iteration, ``optimal_control_problem.py:316-337``
 and ``solve()`` runs the ph-adaptive mesh-iteration loop
 (``optimal_control_problem.py:387-443``).
 
-TPU-native differences: the "backend" is a JAX transcription
+On-device differences: the "backend" is a JAX transcription
 (:mod:`pycollo_tpu.transcription`) solved by the on-device interior-point
 method (:mod:`pycollo_tpu.solver.ipm`); ``solve_batched`` solves many
 perturbed instances of the same problem simultaneously via ``vmap`` and

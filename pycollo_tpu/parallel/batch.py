@@ -5,7 +5,7 @@ This is new capability relative to the serial reference (SURVEY.md section 2
 ``(x0_scaled, theta)``, so thousands of perturbed instances (different
 initial states, endpoint targets, fixed times or parameters — any entry of
 ``theta``) solve simultaneously with ``vmap``, and the batch axis shards
-across TPU chips with ``jax.sharding`` (data-parallel over ICI): the
+across devices with ``jax.sharding`` (data-parallel): the
 batched solve is jitted with a ``NamedSharding`` over the instance axis
 and XLA partitions the whole interior-point ``while_loop`` SPMD, so each
 chip advances its shard independently with no per-iteration cross-chip

@@ -20,7 +20,7 @@ Usage (one call per process)::
 
 The harness in ``tests/integration/test_multihost.py`` runs this on two
 local processes over a virtual CPU mesh — the same code path a real
-multi-host TPU pod uses, minus the hardware.
+multi-host GPU cluster uses, minus the hardware.
 """
 
 from __future__ import annotations
@@ -97,8 +97,7 @@ def solve_batched_global(iteration, theta_local: Optional[np.ndarray] = None,
 
     # Untimed warm-up: compile (collective) happens outside the timed
     # region, otherwise the reported rate is dominated by one-time
-    # compilation (measured: a 3-rep loop with the compile inside
-    # reported 2.4 solves/s where the steady rate is ~40).
+    # compilation.
     fs, conv, n_conv = step(x0_g, theta_g)
     jax.block_until_ready(fs)
     t0 = time.perf_counter()

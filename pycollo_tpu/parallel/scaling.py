@@ -5,7 +5,7 @@ devices of a ``jax.sharding.Mesh`` (weak scaling — the regime of the
 BASELINE target: >= 80% solves/s efficiency from 1 to N hosts).  The
 batched interior-point solve is embarrassingly parallel across instances;
 the only cross-device traffic is the result gather, so efficiency is
-expected near 1.0 on ICI.  On hardware with one chip, run on the CPU
+expected near 1.0.  On hardware with one device, run on the CPU
 backend with ``xla_force_host_platform_device_count`` for a virtual mesh.
 """
 

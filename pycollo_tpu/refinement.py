@@ -22,7 +22,7 @@ The next iteration's guess is the solution polynomials evaluated at the new
 mesh nodes (replacing the reference's linear re-interpolation,
 ``iteration.py:528-583``, with the exact continuous extension).
 
-TPU note: the error estimator and decision logic run on host numpy between
+Device note: the error estimator and decision logic run on host numpy between
 jitted solves — they are O(K * n) work and are not on the hot path.  The
 expensive part (the solve itself) is always a fixed-shape jitted program;
 meshes with equal shapes reuse their compiled executable via JAX's cache.
@@ -209,7 +209,7 @@ def _display_mesh_result_info(solution, iteration):
 def build_warm_start(prev_result, prev_it, new_it):
     """Interpolate the previous iteration's multipliers onto a new mesh.
 
-    TPU-native replacement for the reference's reliance on IPOPT's
+    On-device replacement for the reference's reliance on IPOPT's
     ``warm_start_init_point`` + guess recycling
     (``pycollo/iteration.py:528-583``): bound multipliers ``z`` are
     interpolated per variable over tau; defect multipliers are converted

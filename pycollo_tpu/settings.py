@@ -4,7 +4,7 @@ Capability parity with the reference ``Settings``
 (``pycollo/settings.py:1-466``): typed/validated properties with option
 registries and range checks, covering backend selection, quadrature, solver
 tolerances, mesh iteration limits, scaling, and bounds behavior.  Options
-that exist in the reference but have no TPU-native meaning (e.g. IPOPT's
+that exist in the reference but have no on-device meaning (e.g. IPOPT's
 ``linear_solver = mumps``) are replaced by the equivalent choices for the
 on-device solver.
 """

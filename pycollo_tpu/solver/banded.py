@@ -1,6 +1,6 @@
 """Block-tridiagonal + arrowhead + low-rank KKT factorization.
 
-TPU-native replacement for the sparse symmetric-indefinite factorization
+On-device replacement for the sparse symmetric-indefinite factorization
 the reference gets from MUMPS inside IPOPT (``pycollo/backend.py:1695-1711``;
 the time-banded block pattern is visible in the reference's Hessian
 sparsity assembly, ``pycollo/iteration.py:1039-1052``).

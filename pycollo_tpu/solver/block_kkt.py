@@ -2,7 +2,7 @@
 
 This module assembles the condensed-space KKT matrix of a collocation
 NLP *directly in banded form* from per-node derivative blocks — the
-TPU-native equivalent of the sparse-AD + MUMPS pipeline in the reference
+On-device equivalent of the sparse-AD + MUMPS pipeline in the reference
 (hSAD block assembly ``pycollo/compiled.py:213-539``; MUMPS
 factorization configured at ``pycollo/backend.py:1695-1711``; the
 time-banded/arrowhead block pattern is the reference's Hessian sparsity,

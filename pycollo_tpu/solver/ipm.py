@@ -1,6 +1,6 @@
 """On-device primal-dual interior-point NLP solver.
 
-TPU-native replacement for the reference's IPOPT+MUMPS process boundary
+On-device replacement for the reference's IPOPT+MUMPS process boundary
 (``pycollo/backend.py:1681-1711,1807-1827``): the whole solver — residuals,
 derivatives (via JAX tracing), the condensed-space KKT factorization
 (Cholesky, no pivoting), fraction-to-boundary and a merit line search — is
@@ -19,8 +19,7 @@ positive definite (enforced by the inertia-free regularization loop — a
 failed Cholesky shows up as NaNs and bumps ``dw``; this replaces MUMPS'
 inertia detection) we factor ``W = L L^T`` and the Schur complement
 ``S = J W^-1 J^T + dc*I`` (also Cholesky), following the condensed-space
-interior-point approach used by GPU NLP solvers (see PAPERS.md).  All
-factorizations are supported in f64 on TPU.
+interior-point approach used by GPU NLP solvers (see PAPERS.md).
 
 Defaults mirror the reference's IPOPT overrides where meaningful:
 ``mu_min = 1e-11`` (``pycollo/backend.py:1704-1709``), monotone
@@ -56,7 +55,7 @@ class IPMOptions:
     kappa_eps: float = 10.0
     tau_min: float = 0.99
     #: Armijo constant and number of backtracking halvings (evaluated as one
-    #: batched trial-point sweep — TPU-friendly, no sequential loop)
+    #: batched trial-point sweep, no sequential loop)
     eta_armijo: float = 1e-4
     max_ls: int = 12
     #: globalization: "filter" implements the Wächter–Biegler filter line
@@ -136,8 +135,8 @@ class IPMOptions:
     #: matrix at several regularization levels in ONE batched call and
     #: selects the first positive-definite level per instance (no
     #: sequential retry loop — under vmap a do-while retries the WHOLE
-    #: batch whenever any one instance needs escalation, which measured
-    #: ~60% of the iteration cost); "loop" is the IPOPT-style do-while.
+    #: batch whenever any one instance needs escalation); "loop" is the
+    #: IPOPT-style do-while.
     inertia: str = "speculative"
     #: speculative regularization levels as multipliers of the heuristic
     #: start value 0.3*dw_last (level 0 is always dw = 0); instances not
@@ -147,10 +146,9 @@ class IPMOptions:
     #: The ladder is deliberately WIDE (geometric, ratio 32, spanning
     #: six orders of magnitude): early iterations routinely need dw far
     #: above the 0.3*dw_last heuristic, and under vmap every escalation
-    #: trip refactors the WHOLE batch — profiled at 139 ms/iteration on
-    #: the round-4 bench, the single largest line item.  Extra ladder
-    #: rungs are one more slice of the same batched f32 factorization
-    #: (~0.2 ms) — strictly cheaper than one escalation trip.
+    #: trip refactors the WHOLE batch.  Extra ladder rungs are one more
+    #: slice of the same batched factorization, cheaper than one
+    #: escalation trip.
     spec_levels: tuple = (1.0, 32.0, 1024.0, 32768.0, 1048576.0)
     #: dense path only: append a delta_w_max capstone level to the
     #: speculative stack so some level always factors and the
@@ -200,9 +198,7 @@ class IPMOptions:
     #: fixed point); the step rhs uses an exact f64 J^T lam from one
     #: VJP, and the iterate state, residuals, line-search trials, and
     #: the reported KKT error all stay f64, so the converged solution
-    #: is still certified in f64.  On a TPU with no native f64 (v5e
-    #: emulates at ~25-100x) assembly is where the remaining time goes
-    #: once the factorization is f32.  Requires
+    #: is still certified in f64.  Requires
     #: kkt_precision="mixed" and the dense path.
     eval_dtype: str = "f64"
     #: Krylov iterations for the structured (block-banded) step solve.
@@ -223,6 +219,23 @@ class IPMOptions:
     #: structured Jacobian assembly), "nojtj" J^T J := 0 in K,
     #: "noir" no iterative refinement rounds.
     debug_ablate: str = ""
+
+
+def _highest_precision(fn):
+    """Trace every matmul of ``fn`` at "highest" precision.
+
+    A GPU may run a float32 matmul at the default precision in TF32 (~10
+    mantissa bits), and the f32 factorization of the 1/dc-conditioned
+    condensed matrix of the mixed path is garbage at that precision.
+    Float64 matmuls are unaffected.  Each entry point of the solver is
+    wrapped whole, initial state included, so that no f32 matmul is
+    traced outside the context.
+    """
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 class IPMResult(NamedTuple):
@@ -338,10 +351,9 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
     J_s = np.zeros((m, ns))
     J_s[ineq_idx, np.arange(ns)] = -1.0
 
-    from .linalg import make_spd_solver
+    from .linalg import make_spd_solver, positive_definite
     mixed = opt.kkt_precision == "mixed"
-    spd_factor, spd_solve, spd_diag = make_spd_solver(
-        n + ns, pallas=(mixed and jax.default_backend() == "tpu"))
+    spd_factor, spd_diag, spd_invert, spd_solve = make_spd_solver()
     fac_dtype = jnp.float32 if mixed else None
     use_gmres_dense = (opt.dense_refine == "gmres"
                        or (opt.dense_refine == "auto" and mixed))
@@ -442,7 +454,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         non-positive-definite ``W`` makes the Cholesky factor NaN, which
         triggers an escalation of the primal regularization ``dw`` and an
         immediate refactorization (no pivoting or inertia counts needed —
-        this is the TPU-native replacement for MUMPS' inertia detection).
+        this replaces MUMPS' inertia detection).
 
         ``restore``: feasibility-restoration mode — the caller passes
         ``gf = 0`` and the Lagrangian Hessian is swapped for a proximal
@@ -490,21 +502,18 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         # The condensed matrix K is only ever *factored* — every residual
         # in the refinement loop below is computed from W0/J/dc directly.
         # In mixed mode the O(nv^2 m) JtJ product and the O(nv^3)
-        # factorization therefore run in f32 (the TPU has no native f64
-        # matmul; emulation costs ~25x), while step accuracy is restored
-        # by f64 iterative refinement.
+        # factorization therefore run in f32, while step accuracy is
+        # restored by f64 iterative refinement.
         if mixed:
             J_fc = J.astype(fac_dtype)
             JtJ_f = J_fc.T @ J_fc
             W0_fc = W0.astype(fac_dtype)
             eye_f = jnp.eye(nv, dtype=fac_dtype)
-            piv_floor = 1e-16
         else:
             J_fc = J
             JtJ_f = J.T @ J
             W0_fc = W0
             eye_f = eye_nv
-            piv_floor = 1e-100
         if "nojtj" in ablate:
             JtJ_f = jnp.zeros_like(JtJ_f)
 
@@ -531,14 +540,8 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                     jax.eval_shape(spd_factor, Ks))
             else:
                 factors_ = spd_factor(Ks)
-            # Indefiniteness detection: NaN/clamped-to-zero pivots.  On
-            # the equilibrated matrix a healthy pivot is O(1), so a
-            # small threshold is meaningful (in f32 a failed pivot
-            # clamps to exactly zero).
-            diag = spd_diag(factors_)
-            lvl_ok = jnp.all(jnp.isfinite(diag), axis=-1) \
-                & ~jnp.any(diag < piv_floor, axis=-1)
-            return factors_, dK, lvl_ok
+            # Indefiniteness detection: NaN or near-zero pivots.
+            return factors_, dK, positive_definite(spd_diag(factors_))
 
         def solve_with(factors_, dK64, dw):
             """KKT solve + f64 refinement on given factors.
@@ -563,8 +566,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                 # RELATIVE to the step (inexact-Newton forcing term ~
                 # 1e-6), while the f64-evaluated rhs (rd, rg) pins the
                 # outer fixed point exactly — so none of the ~30 matvecs
-                # per step needs emulated f64 (measured: an all-f64
-                # coupled GMRES tripled the per-iteration cost on TPU).
+                # per step needs f64.
                 from .krylov import gmres_right
                 fdt = fac_dtype or v.dtype
                 dK_f = dK64.astype(fdt)
@@ -615,9 +617,10 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         def attempt(dw):
             K = K0_f + dw.astype(K0_f.dtype) * eye_f
             factors_, dK, lvl_ok = equil_factor(K)
+            Linv = spd_invert(factors_)
             dK64 = dK.astype(v.dtype)
-            dv, dlam, solved_ok = solve_with(factors_, dK64, dw)
-            return dv, dlam, lvl_ok & solved_ok, (factors_, dK64)
+            dv, dlam, solved_ok = solve_with(Linv, dK64, dw)
+            return dv, dlam, lvl_ok & solved_ok, (Linv, dK64)
 
         # Inertia-correction escalation as a do-while with a single copy
         # of the factorization program (keeps the compiled program small;
@@ -646,10 +649,8 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             # dw in {0, spec_levels * 0.3*dw_last, delta_w_max} in ONE
             # batched call and keep the first positive-definite level.
             # Replaces the do-while retry: under vmap a retry by ANY
-            # instance refactors the WHOLE batch (measured ~60% of the
-            # iteration cost on the batched cart-pole workload), while
-            # the stacked factorization amortizes into the same batched
-            # matmul-dominated kernel.
+            # instance refactors the WHOLE batch, while the stacked
+            # factorization amortizes into the same batched call.
             dw1 = jnp.maximum(opt.delta_w_min, 0.3 * dw_last)
             dws = jnp.stack(
                 [jnp.zeros_like(dw1)]
@@ -662,17 +663,18 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
             fac_all, dK_all, lvl_ok = equil_factor(K_all)
             lvl = jnp.argmax(lvl_ok)
             any_lvl = jnp.any(lvl_ok)
-            factors_sel = jax.tree_util.tree_map(lambda a: a[lvl],
-                                                 fac_all)
+            # Only the selected level is inverted for the solves.
+            Linv = spd_invert(jax.tree_util.tree_map(lambda a: a[lvl],
+                                                     fac_all))
             dK64 = dK_all[lvl].astype(v.dtype)
             dw_spec = dws[lvl]
-            dv, dlam, solved_ok = solve_with(factors_sel, dK64, dw_spec)
+            dv, dlam, solved_ok = solve_with(Linv, dK64, dw_spec)
             ok0 = any_lvl & solved_ok
             # Escalation fallback above the top speculative level for the
             # (rare) instances that are still indefinite; zero-trip when
             # the whole batch is satisfied.
             init = (dws[-1], dv, dlam, ok0, jnp.asarray(1, jnp.int32),
-                    (factors_sel, dK64))
+                    (Linv, dK64))
             dw_esc, dv, dlam, ok, _, factors = jax.lax.while_loop(
                 esc_cond, esc_body, init)
             # Actual dw of the SELECTED factors (fed to the corrector's
@@ -1369,7 +1371,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
 
         Warm-start inputs (``lam0`` (m,), ``zl0``/``zu0`` (n,) for the
         original variables, ``mu0`` scalar) are what the mesh-refinement
-        loop carries between iterations — the TPU-native equivalent of
+        loop carries between iterations — the on-device equivalent of
         the reference's IPOPT ``warm_start_init_point``
         (``pycollo/backend.py:1703-1709``).
         """
@@ -1433,18 +1435,7 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
         def cond(state):
             return (~state.done) & (state.it < opt.max_iter)
 
-        import contextlib
-        # Mixed mode: force full-f32 matmul accumulation.  On TPU, f32
-        # matmuls default to ONE bf16 MXU pass (~8 mantissa bits) —
-        # the f32 factorization of the 1/dc-conditioned condensed
-        # matrix is garbage at that precision (measured: 0/64 batch
-        # convergence on-chip vs 16/16 on CPU).  "highest" runs the
-        # 6-pass bf16 decomposition: exact f32, still MXU-rate.
-        ctx = jax.default_matmul_precision("highest") if mixed \
-            else contextlib.nullcontext()
-        with ctx:
-            final = jax.lax.while_loop(cond, lambda s: body(s, theta),
-                                       state0)
+        final = jax.lax.while_loop(cond, lambda s: body(s, theta), state0)
         # Return the best-KKT iterate seen, not the last, when a near-
         # solution iterate was reached: a late noise-amplified step can
         # destroy a near-converged iterate (see the _State.be0 note).
@@ -1473,14 +1464,17 @@ def build_ipm_solver(f_fn: Callable, c_fn: Callable,
                          mu=final.mu, iterations=final.it,
                          converged=conv_out)
 
+    @_highest_precision
     def solve(x0, theta):
         return _run(init_state(x0, theta), theta)
 
+    @_highest_precision
     def solve_warm(x0, theta, lam0, zl0, zu0, mu0):
         return _run(init_state(x0, theta, lam0, zl0, zu0, mu0), theta)
 
     solve.warm = solve_warm
 
+    @_highest_precision
     def debug_step(state: _State, theta):
         """One body step with diagnostics (host-side debugging only)."""
         v, lam, zl, zu, mu, nu = (state.v, state.lam, state.zl, state.zu,

@@ -17,7 +17,7 @@ iterations and delivers f64-grade steps, which in turn keeps the
 
 Everything is static-shape and branch-free (fixed iteration count,
 ``lstsq`` on the small Hessenberg system), so it jits and vmaps like any
-other kernel — the TPU-native equivalent of the iterative refinement
+other kernel — the on-device equivalent of the iterative refinement
 MUMPS performs inside the reference's IPOPT
 (``/root/reference/pycollo/backend.py:1695-1711``).
 """
@@ -74,17 +74,15 @@ def gmres_right(matvec, precond, rhs, iters: int):
 
     e1 = jnp.zeros(iters + 1, rhs.dtype).at[0].set(1.0)
     # Ridge-regularized normal equations instead of ``lstsq``: the
-    # SVD-based lstsq lowering SIGABRTs the XLA TPU compiler in f32
-    # (jax 0.9 / libtpu 2026-08), and the (iters+1, iters) Hessenberg
-    # system is tiny and benign (columns come from an orthonormal
-    # Arnoldi basis); zero columns from a breakdown are handled by the
-    # ridge, which then selects the minimum-norm coefficient exactly as
-    # lstsq did.
+    # (iters+1, iters) Hessenberg system is tiny and benign (columns
+    # come from an orthonormal Arnoldi basis); zero columns from a
+    # breakdown are handled by the ridge, which then selects the
+    # minimum-norm coefficient as lstsq would.  It squares the
+    # Hessenberg condition number (Givens rotations would not).
     HtH = H.T @ H
     ridge = 100.0 * jnp.finfo(rhs.dtype).eps ** 2 \
         * (1.0 + jnp.trace(HtH))
-    # Cholesky, not LU: XLA's LuDecomposition is f32-only on TPU, while
-    # the ridged normal-equations matrix is SPD by construction.
+    # The ridged normal-equations matrix is SPD by construction.
     L = jnp.linalg.cholesky(HtH + ridge * jnp.eye(iters,
                                                   dtype=rhs.dtype))
     y = jax.scipy.linalg.cho_solve((L, True), H.T @ e1)

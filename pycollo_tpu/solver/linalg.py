@@ -1,378 +1,65 @@
-"""Batched dense linear algebra for the condensed-space KKT solves.
+"""Batched dense Cholesky for the condensed-space KKT solves.
 
 This is the dense-KKT workhorse of the condensed-space interior point
-solver — the TPU-native replacement for the reference's MUMPS
-factorization inside IPOPT (``pycollo/backend.py:1695-1711``).
+solver, in place of the reference's MUMPS factorization inside IPOPT
+(``pycollo/backend.py:1695-1711``).  It is plain XLA: the batched
+factorization goes to cuSOLVER on a GPU and to LAPACK on the CPU.
 
-Measured on the available v5e chip (jax 0.9): XLA's native
-``jnp.linalg.cholesky`` / ``cho_solve`` lowerings are *fast* for the
-batched sizes the IPM produces (256x128x128 f64 factor ~0.1 ms), so the
-native ops are the default on every backend.  The hand-blocked
-matmul-dominated reimplementation (``BlockedCholesky``, written against
-an older jax whose TPU lowering was loop-based) is retained behind
-``PYCOLLO_TPU_BLOCKED_LINALG=1`` for comparison — its per-call runtime
-is competitive but its recursive-halving program takes ~18 s to compile
-per instantiation, which multiplies disastrously inside the IPM loop.
+The solver factors every inertia level of every instance, selects one
+level per instance, and then solves with it several times (about 4 times
+per factorization on the f64 path, about 18 on the mixed path's GMRES).
+So the selected factor is inverted once and every solve is two
+matrix-vector products.  On an NVIDIA H100 80GB HBM3 at a 400 W power
+limit, end to end on the batched cart-pole cell, this spelling gave
++19% solves/s on the f64 path and +142% on the mixed path over
+``cho_solve`` substitutions (``PERF.md``, PR 1).
 """
 
 from __future__ import annotations
-
-import functools
-import os
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 
 
-def use_blocked_linalg() -> bool:
-    """Native XLA cholesky wins on every backend measured (see module
-    docstring); the blocked path is opt-in for benchmarking."""
-    return os.environ.get("PYCOLLO_TPU_BLOCKED_LINALG", "") == "1"
+def make_spd_solver():
+    """Return ``(factor, diag, invert, solve)`` for stacks of SPD matrices.
 
-
-def _unblocked_cholesky(A):
-    """Cholesky of (..., m, m) by recursive halving (m a power of two).
-
-    chol([[A11, .], [A21, A22]]) = [[L11, 0], [A21 L11^-T,
-    chol(A22 - L21 L21^T)]] — depth log2(m), matmul-dominated, no
-    triangular_solve primitive.
+    ``factor(A)`` takes ``(..., n, n)`` and gives the lower Cholesky
+    factor ``L``; ``diag(L)`` gives its ``(..., n)`` pivots;
+    ``invert(L)`` gives ``L^-1``, once per factor that is solved with;
+    ``solve(Linv, rhs)`` takes a right-hand side ``(..., n)`` or
+    ``(..., n, k)`` and costs two matrix products.  A matrix that is not
+    positive definite factors to NaN (JAX replaces the factor of a
+    failed ``potrf`` with NaN on every backend), which
+    :func:`positive_definite` detects from the pivots.
     """
-    m = A.shape[-1]
-    if m == 1:
-        return jnp.sqrt(jnp.maximum(A, 1e-300))
-    h = m // 2
-    L11 = _unblocked_cholesky(A[..., :h, :h])
-    L11_inv = _tri_lower_inverse(L11)
-    L21 = jnp.einsum("...ij,...kj->...ik", A[..., h:, :h], L11_inv)
-    S = A[..., h:, h:] - jnp.einsum("...ij,...kj->...ik", L21, L21)
-    L22 = _unblocked_cholesky(S)
-    top = jnp.concatenate([L11, jnp.zeros_like(A[..., :h, h:])], axis=-1)
-    bot = jnp.concatenate([L21, L22], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-def _tri_lower_inverse(L):
-    """Inverse of lower-triangular (..., m, m) by recursive halving:
-    inv([[L11, 0], [L21, L22]]) = [[L11^-1, 0],
-    [-L22^-1 L21 L11^-1, L22^-1]]."""
-    m = L.shape[-1]
-    if m == 1:
-        return 1.0 / L
-    h = m // 2
-    L11_inv = _tri_lower_inverse(L[..., :h, :h])
-    L22_inv = _tri_lower_inverse(L[..., h:, h:])
-    bottom_left = -L22_inv @ (L[..., h:, :h] @ L11_inv)
-    top = jnp.concatenate([L11_inv, jnp.zeros_like(L[..., :h, h:])],
-                          axis=-1)
-    bot = jnp.concatenate([bottom_left, L22_inv], axis=-1)
-    return jnp.concatenate([top, bot], axis=-2)
-
-
-class BlockedCholesky:
-    """Blocked Cholesky factorization with precomputed diagonal inverses.
-
-    ``factor(A)`` returns (L, Dinv) where ``L`` is the lower factor and
-    ``Dinv`` stacks the inverses of its diagonal blocks; ``solve`` then
-    needs only batched matmuls (no triangular_solve primitive at all).
-
-    Two spellings of the same algorithm: ``unroll=True`` uses static
-    Python loops over block columns (static slices — fastest under
-    ``vmap``, larger program), ``unroll=False`` uses ``fori_loop`` with
-    dynamic slices (compact program, slower when vmapped).
-    """
-
-    def __init__(self, n: int, block: int = 32, unroll: bool = True):
-        self.n = n
-        self.block = block
-        self.nb = -(-n // block)
-        self.n_pad = self.nb * block
-        self.unroll = unroll
-
-    def _pad(self, A):
-        n, n_pad = self.n, self.n_pad
-        if n_pad == n:
-            return A
-        batch = A.shape[:-2]
-        Ap = jnp.zeros(batch + (n_pad, n_pad), dtype=A.dtype)
-        Ap = Ap.at[..., :n, :n].set(A)
-        pad_idx = jnp.arange(n, n_pad)
-        return Ap.at[..., pad_idx, pad_idx].set(1.0)
-
-    def factor_unrolled(self, A):
-        """Static-slice spelling (``unroll=True`` path)."""
-        b, nb, n_pad = self.block, self.nb, self.n_pad
-        A = self._pad(A)
-        L = jnp.zeros_like(A)
-        Dinv = []
-        for i in range(nb):
-            s = i * b
-            e = s + b
-            Ld = _unblocked_cholesky(A[..., s:e, s:e])
-            Ld_inv = _tri_lower_inverse(Ld)
-            L = L.at[..., s:e, s:e].set(Ld)
-            Dinv.append(Ld_inv)
-            if e < n_pad:
-                panel = jnp.einsum("...ij,...kj->...ik",
-                                   A[..., e:, s:e], Ld_inv)
-                L = L.at[..., e:, s:e].set(panel)
-                A = A.at[..., e:, e:].add(
-                    -jnp.einsum("...ij,...kj->...ik", panel, panel))
-        return L, jnp.stack(Dinv, axis=-3)
-
-    def solve_unrolled(self, factors, rhs):
-        L, Dinv = factors
-        n, b, nb, n_pad = self.n, self.block, self.nb, self.n_pad
-        vec = rhs.ndim == L.ndim - 1
-        if vec:
-            rhs = rhs[..., None]
-        if n_pad != n:
-            pad = jnp.zeros(rhs.shape[:-2] + (n_pad - n, rhs.shape[-1]),
-                            dtype=rhs.dtype)
-            rhs = jnp.concatenate([rhs, pad], axis=-2)
-        y = jnp.zeros_like(rhs)
-        for i in range(nb):
-            s = i * b
-            e = s + b
-            acc = rhs[..., s:e, :]
-            if i:
-                acc = acc - L[..., s:e, :s] @ y[..., :s, :]
-            y = y.at[..., s:e, :].set(Dinv[..., i, :, :] @ acc)
-        x = jnp.zeros_like(y)
-        for i in reversed(range(nb)):
-            s = i * b
-            e = s + b
-            acc = y[..., s:e, :]
-            if e < n_pad:
-                acc = acc - jnp.swapaxes(L[..., e:, s:e], -1, -2) \
-                    @ x[..., e:, :]
-            x = x.at[..., s:e, :].set(
-                jnp.swapaxes(Dinv[..., i, :, :], -1, -2) @ acc)
-        x = x[..., :n, :]
-        return x[..., 0] if vec else x
-
-    def factor(self, A):
-        if self.unroll:
-            return self.factor_unrolled(A)
-        return self.factor_fori(A)
-
-    def solve(self, factors, rhs):
-        if self.unroll:
-            return self.solve_unrolled(factors, rhs)
-        return self.solve_fori(factors, rhs)
-
-    def factor_fori(self, A):
-        """Factor via a ``fori_loop`` over block columns.
-
-        Each step extracts the current diagonal block with a dynamic
-        slice, factors/inverts it with the recursive-halving kernels, and
-        applies the panel/trailing updates *full-width under a column
-        mask* — a constant-size program (compile time independent of the
-        number of blocks) at the cost of a small constant-factor FLOP
-        overhead, the right trade on TPU where the while-loop body is
-        compiled once.
-        """
-        n, b, nb, n_pad = self.n, self.block, self.nb, self.n_pad
-        batch = A.shape[:-2]
-        if n_pad != n:
-            Ap = jnp.zeros(batch + (n_pad, n_pad), dtype=A.dtype)
-            Ap = Ap.at[..., :n, :n].set(A)
-            # Identity padding keeps the factorization well defined.
-            pad_idx = jnp.arange(n, n_pad)
-            Ap = Ap.at[..., pad_idx, pad_idx].set(1.0)
-            A = Ap
-        col_idx = jnp.arange(n_pad)
-
-        def body(i, carry):
-            A, L, Dinv = carry
-            s = i * b
-            zeros = (0,) * len(batch)
-            D = jax.lax.dynamic_slice(A, zeros + (s, s), batch + (b, b))
-            Ld = _unblocked_cholesky(D)
-            Ld_inv = _tri_lower_inverse(Ld)
-            Dinv = jax.lax.dynamic_update_slice(
-                Dinv, Ld_inv[..., None, :, :], zeros + (i, 0, 0))
-            # Full-height panel P = A[:, s:s+b] @ Ld_inv^T, masked to the
-            # rows strictly below the block (above-block rows zeroed).
-            Acols = jax.lax.dynamic_slice(A, zeros + (0, s),
-                                          batch + (n_pad, b))
-            panel = jnp.einsum("...ij,...kj->...ik", Acols, Ld_inv)
-            below = (col_idx >= s + b)[:, None]
-            panel = jnp.where(below, panel, 0.0)
-            # Store the panel and the diagonal block into L's columns.
-            pad_block = jnp.zeros(batch + (n_pad, b), dtype=A.dtype)
-            Ld_full = jax.lax.dynamic_update_slice(pad_block, Ld,
-                                                   zeros + (s, 0))
-            Lcols = panel + Ld_full
-            L = jax.lax.dynamic_update_slice(L, Lcols, zeros + (0, s))
-            # Trailing update (full-size, panel is masked so only the
-            # below-block submatrix changes).
-            A = A - jnp.einsum("...ij,...kj->...ik", panel, panel)
-            return (A, L, Dinv)
-
-        L0 = jnp.zeros_like(A)
-        Dinv0 = jnp.zeros(batch + (nb, b, b), dtype=A.dtype)
-        _, L, Dinv = jax.lax.fori_loop(0, nb, body, (A, L0, Dinv0))
-        return L, Dinv
-
-    def solve_fori(self, factors, rhs):
-        """Solve A x = rhs given ``factor`` output; rhs (..., n) or
-        (..., n, k).  Block substitution via ``fori_loop`` with masked
-        full-width matvecs (constant program size)."""
-        L, Dinv = factors
-        n, b, nb, n_pad = self.n, self.block, self.nb, self.n_pad
-        batch = L.shape[:-2]
-        nb_dims = len(batch)
-        vec = rhs.ndim == L.ndim - 1
-        if vec:
-            rhs = rhs[..., None]
-        k = rhs.shape[-1]
-        if n_pad != n:
-            pad = jnp.zeros(rhs.shape[:-2] + (n_pad - n, k),
-                            dtype=rhs.dtype)
-            rhs = jnp.concatenate([rhs, pad], axis=-2)
-
-        def dslice(M, s, rows, cols):
-            start = (0,) * nb_dims + s
-            return jax.lax.dynamic_slice(M, start, batch + (rows, cols))
-
-        def dupdate(M, U, s):
-            return jax.lax.dynamic_update_slice(M, U, (0,) * nb_dims + s)
-
-        # Forward substitution L y = rhs.
-        def fwd(i, y):
-            s = i * b
-            Lrows = dslice(L, (s, 0), b, n_pad)     # (b, n_pad)
-            acc = dslice(rhs, (s, 0), b, k) - Lrows @ y
-            Di = jnp.squeeze(jax.lax.dynamic_slice(
-                Dinv, (0,) * nb_dims + (i, 0, 0),
-                batch + (1, b, b)), axis=-3)
-            # y rows for this block were zero, so Lrows @ y excluded the
-            # diagonal block contribution already.
-            return dupdate(y, Di @ acc, (s, 0))
-
-        y = jax.lax.fori_loop(0, nb, fwd, jnp.zeros_like(rhs))
-
-        # Backward substitution L^T x = y.
-        def bwd(j, x):
-            i = nb - 1 - j
-            s = i * b
-            Lcols = dslice(L, (0, s), n_pad, b)     # (n_pad, b)
-            acc = dslice(y, (s, 0), b, k) \
-                - jnp.swapaxes(Lcols, -1, -2) @ x
-            Di = jnp.squeeze(jax.lax.dynamic_slice(
-                Dinv, (0,) * nb_dims + (i, 0, 0),
-                batch + (1, b, b)), axis=-3)
-            # x rows of this block are zero so Lcols^T x excludes the
-            # diagonal; but Lcols includes the diagonal block rows whose
-            # x entries are zero -> no correction needed.
-            return dupdate(x, jnp.swapaxes(Di, -1, -2) @ acc, (s, 0))
-
-        x = jax.lax.fori_loop(0, nb, bwd, jnp.zeros_like(y))
-        x = x[..., :n, :]
-        return x[..., 0] if vec else x
-
-
-def cholesky_factor(A, block: int = 32):
-    """Factor an SPD (..., n, n) matrix; returns (impl, factors)."""
-    impl = BlockedCholesky(A.shape[-1], block)
-    return impl, impl.factor(A)
-
-
-def make_spd_solver(n: int, block: int = 32, pallas: bool = False):
-    """Return (factor, solve, diag) callables choosing the best
-    implementation for the active backend.
-
-    ``pallas=True`` (the interior-point solver sets it for the
-    mixed-precision path on TPU) factors via the lane-vectorized Pallas
-    diagonal-block kernel + MXU block algebra
-    (:func:`pycollo_tpu.ops.block_chol.blocked_chol_linv`): XLA's TPU
-    Cholesky custom call runs a sequential per-instance blocked
-    algorithm at ~50 GFLOP/s on the (batch*levels, 148, 148) stacks the
-    IPM produces — 21.5 ms per factorization sweep on the profiled
-    cart-pole bench, the largest single line item.  A custom_vmap rule
-    folds outer ``vmap`` axes into the kernel's lane batch so the
-    per-instance (levels, n, n) stack and the instance axis ride the
-    128-wide lanes together instead of gridding tiny calls.
-    """
-    if pallas:
-        from ..ops.block_chol import blocked_chol_linv
-
-        @jax.custom_batching.custom_vmap
-        def factor(A):
-            return blocked_chol_linv(A)
-
-        @factor.def_vmap
-        def _factor_vmap(axis_size, in_batched, A):
-            # blocked_chol_linv handles arbitrary leading batch dims;
-            # re-entering it directly merges the new axis into the lane
-            # batch (and composes under further nesting).
-            return blocked_chol_linv(A), (True, True)
-
-        def solve(factors, rhs):
-            _, Linv = factors
-            vec = rhs.ndim == Linv.ndim - 1
-            r = rhs[..., None] if vec else rhs
-            y = jnp.swapaxes(Linv, -1, -2) @ (Linv @ r)
-            return y[..., 0] if vec else y
-
-        def diag_of_factor(factors):
-            return factors[0]
-
-        return factor, solve, diag_of_factor
-
-    if use_blocked_linalg():
-        impl = BlockedCholesky(n, block)
-
-        def factor(A):
-            L, Dinv = impl.factor(A)
-            return (L, Dinv)
-
-        def solve(factors, rhs):
-            return impl.solve(factors, rhs)
-
-        def diag_of_factor(factors):
-            return jnp.diagonal(factors[0], axis1=-2, axis2=-1)[..., :n]
-
-        return factor, solve, diag_of_factor
-
-    if jax.default_backend() == "tpu":
-        # TPU: Cholesky + explicit inverse factor.  XLA's batched
-        # ``triangular_solve`` on TPU is a sequential substitution over
-        # rows — profiled at ~5 ms per (256, n) vector solve vs 0.1 ms
-        # for the whole batched factorization — and the interior-point
-        # step does ~18 such solves per iteration (GMRES preconditioner
-        # applications).  Inverting L once per factorization with the
-        # matmul-only recursive-halving kernel turns every subsequent
-        # solve into two MXU matvecs.  (CPU keeps LAPACK cho_solve: the
-        # inverse-factor program is larger for no runtime gain there.)
-        def factor(A):
-            L = jnp.linalg.cholesky(A)
-            # NaN-safe: a failed (indefinite) factorization yields NaN
-            # rows in L; the reciprocal-diagonal recursion keeps them
-            # NaN, which the caller's pivot check detects as before.
-            Linv = _tri_lower_inverse(L)
-            return (L, Linv)
-
-        def solve(factors, rhs):
-            L, Linv = factors
-            vec = rhs.ndim == Linv.ndim - 1
-            r = rhs[..., None] if vec else rhs
-            y = jnp.swapaxes(Linv, -1, -2) @ (Linv @ r)
-            return y[..., 0] if vec else y
-
-        def diag_of_factor(factors):
-            return jnp.diagonal(factors[0], axis1=-2, axis2=-1)
-
-        return factor, solve, diag_of_factor
 
     def factor(A):
         return jnp.linalg.cholesky(A)
 
-    def solve(L, rhs):
-        return jax.scipy.linalg.cho_solve((L, True), rhs)
-
-    def diag_of_factor(L):
+    def diag(L):
         return jnp.diagonal(L, axis1=-2, axis2=-1)
 
-    return factor, solve, diag_of_factor
+    def invert(L):
+        eye = jnp.broadcast_to(jnp.eye(L.shape[-1], dtype=L.dtype), L.shape)
+        return jax.scipy.linalg.solve_triangular(L, eye, lower=True)
+
+    def solve(Linv, rhs):
+        vec = rhs.ndim == Linv.ndim - 1
+        r = rhs[..., None] if vec else rhs
+        x = jnp.swapaxes(Linv, -1, -2) @ (Linv @ r)
+        return x[..., 0] if vec else x
+
+    return factor, diag, invert, solve
+
+
+def positive_definite(pivots):
+    """True where every pivot of a Cholesky factor is finite and positive.
+
+    ``pivots``: ``(..., n)`` from ``diag``.  On a Jacobi-equilibrated
+    matrix a healthy pivot is O(1), so a small floor is meaningful: in
+    float32 a failed pivot can round to exactly zero instead of NaN.
+    """
+    floor = 1e-16 if pivots.dtype == jnp.float32 else 1e-100
+    return jnp.all(jnp.isfinite(pivots), axis=-1) \
+        & ~jnp.any(pivots < floor, axis=-1)

@@ -8,7 +8,7 @@ expressions are lambdified with sympy's JAX printer into functions
 ``f(y, u, t, s) -> array`` consumed by the transcription.  There is no
 symbolic differentiation here — derivatives come from JAX tracing
 (``jax.grad`` / ``jax.jacfwd`` / ``jax.hessian``) downstream, which is the
-TPU-native replacement for CasADi AD / the dormant hSAD expression graph.
+On-device replacement for CasADi AD / the dormant hSAD expression graph.
 """
 
 from __future__ import annotations

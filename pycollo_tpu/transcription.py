@@ -6,7 +6,7 @@ This module replaces the reference's per-iteration CasADi symbol expansion
 the state/control trajectories of each phase are matrices ``(ny, N)`` /
 ``(nu, N)``, per-node user functions are ``vmap``-ed across all mesh nodes
 at once, and the defect/integral operators are plain matmuls with the static
-mesh tables (MXU-friendly; no per-node symbolic expansion).
+mesh tables (no per-node symbolic expansion).
 
 Layout invariants match the reference (SURVEY.md section 3.5):
 
@@ -626,7 +626,7 @@ class MeshIteration:
         """Per-node block assembly of the constraint Jacobian and the
         Lagrangian Hessian.
 
-        TPU-native replacement for the reference's sparse symbolic AD
+        On-device replacement for the reference's sparse symbolic AD
         (hSAD ``expression_graph.py`` / the block-structured assembly in
         ``compiled.py:213-539``): the only nonlinearities are the
         *per-node* user functions, so their small Jacobian/Hessian blocks
@@ -921,9 +921,8 @@ class MeshIteration:
         """Objective / constraint scaling (``pycollo/scaling.py:271-430``).
 
         Runs entirely on the host CPU backend: this is one-time setup
-        work at the guess (a single dense Jacobian + two gradients), and
-        compiling the dense scatter-assembled Jacobian program on a TPU
-        costs minutes for zero benefit.
+        work at the guess (a single dense Jacobian + two gradients), not
+        worth compiling for the accelerator.
         """
         import jax
         import jax.numpy as jnp
@@ -951,8 +950,8 @@ class MeshIteration:
             # Constraint scales (per OCP constraint): defect rows 1/V_y,
             # integral rows 1/V_q, path/endpoint rows 1/(mean row norms of
             # G at the guess) (``pycollo/scaling.py:370-430``).  G comes
-            # from the structured per-node assembly (orders of magnitude
-            # cheaper to compile than whole-program jacrev on TPU).
+            # from the structured per-node assembly (far cheaper to
+            # compile than whole-program jacrev).
             self._build_structured_derivatives()
             V_free = self.V_full[self.free_idx]
             x_full0 = jnp.asarray(self.x_full_guess)

@@ -1,4 +1,5 @@
-"""Small shared utilities: options registries and formatting helpers.
+"""Small shared utilities: options registries, formatting helpers and the
+location of JAX's persistent compilation cache.
 
 ``Options`` reproduces the capability of the reference's
 options-registry-with-unsupported-markers pattern (pyproprop ``Options`` used
@@ -9,7 +10,30 @@ of enumerated-but-unsupported options that raise on use.
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Iterable, Optional
+
+#: Default persistent compilation cache: one fixed directory inside the
+#: checkout (listed in ``.gitignore``).  The directory is part of the
+#: cache key, so a cache that moves between runs never hits.
+DEFAULT_COMPILE_CACHE = Path(__file__).resolve().parent.parent / ".jax_cache"
+
+
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at one directory.
+
+    If ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    nothing is changed.  Otherwise the cache goes to
+    :data:`DEFAULT_COMPILE_CACHE`.  Returns the directory in use.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+    path = str(DEFAULT_COMPILE_CACHE)
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 class Options:

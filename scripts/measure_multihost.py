@@ -30,8 +30,9 @@ import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
 sys.path.insert(0, %(repo)r)
+from pycollo_tpu.utils import configure_compile_cache
+configure_compile_cache()
 sys.path.insert(0, %(repo)r + "/examples")
 
 from pycollo_tpu.parallel import multihost

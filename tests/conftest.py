@@ -1,9 +1,11 @@
 """Test configuration: force CPU with a virtual 8-device mesh.
 
 Tests run on the CPU backend (fast, deterministic, full f64) with
-``xla_force_host_platform_device_count=8`` so multi-chip sharding tests
-exercise a real 8-device mesh without TPU hardware — the TPU-native
-analogue of the reference's solver-free unit strategy (SURVEY.md section 4).
+``xla_force_host_platform_device_count=8`` so multi-device sharding tests
+exercise a real 8-device mesh without accelerators — the analogue of the
+reference's solver-free unit strategy (SURVEY.md section 4).  Tests that
+need a GPU are marked ``gpu`` and decide inside the test whether one is
+present.
 """
 
 import os
@@ -17,19 +19,20 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 # Persistent compilation cache: mesh-iteration programs recompile per
 # shape; caching them across test runs cuts wall time drastically.
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pycollo_tpu.utils import configure_compile_cache  # noqa: E402
+
+configure_compile_cache()
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
-import sympy as sym  # noqa: E402
 
 
 @pytest.fixture
 def brachistochrone_problem():
     """Fully-defined, uninitialised brachistochrone fixture
     (parity with ``tests/unit/conftest.py:14-56`` of the reference)."""
+    import sympy as sym
     from pycollo_tpu import OptimalControlProblem
 
     x, y, v, u = sym.symbols("x y v u")
@@ -58,6 +61,7 @@ def brachistochrone_problem():
 def cart_pole_problem():
     """Cart-pole swing-up fixture (Kelly 2017), the batched-MPC workload
     of BASELINE.json."""
+    import sympy as sym
     from pycollo_tpu import OptimalControlProblem
 
     q1, q2, q1d, q2d = sym.symbols("q1 q2 q1d q2d")

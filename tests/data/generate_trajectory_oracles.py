@@ -47,7 +47,8 @@ def capture(name, build, quadrature="lobatto"):
 def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
+    from pycollo_tpu.utils import configure_compile_cache
+    configure_compile_cache()
 
     from brachistochrone import build_problem as build_brachistochrone
     from cart_pole_swing_up import build_problem as build_cart_pole

@@ -1,14 +1,10 @@
 """Mixed-precision (f32 factorization + f64 refinement) KKT path.
 
-Round-4 coverage for ``kkt_precision="mixed"`` (previously dark code:
-nothing in the suite ever exercised it).  The mixed path factors the
-equilibrated condensed matrix in f32 — on TPU at full-f32 matmul
-accumulation (see the ``default_matmul_precision`` note in
-``solver/ipm.py:_run``) — and restores step accuracy with f64 iterative
-refinement.  This is the MXU route on chips with no native f64 matmul
-(the TPU v5e emulates f64 at ~25x cost), replacing the native speed the
-reference gets from MUMPS/CasADi C++
-(``/root/reference/pycollo/backend.py:1695-1711``).
+Coverage for ``kkt_precision="mixed"``.  The mixed path factors the
+equilibrated condensed matrix in f32 — with every matmul at "highest"
+precision (see ``_highest_precision`` in ``solver/ipm.py``), so a GPU
+does not round it to TF32 — and restores step accuracy with f64
+refinement.
 """
 
 import sys

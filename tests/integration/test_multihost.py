@@ -1,7 +1,7 @@
 """Two-process ``jax.distributed`` harness over a virtual CPU mesh.
 
 Validates the multi-host batched-solve path (``parallel/multihost.py``)
-end to end without TPU hardware: two local processes, each with 2
+end to end without accelerators: two local processes, each with 2
 virtual CPU devices, form a 4-device global mesh over the distributed
 runtime; a perturbed cart-pole batch shards host-major across it; every
 instance must converge and process 0's shard must match a single-process
@@ -31,8 +31,9 @@ import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
 sys.path.insert(0, %(repo)r)
+from pycollo_tpu.utils import configure_compile_cache
+configure_compile_cache()
 
 from pycollo_tpu.parallel import multihost
 

@@ -1,6 +1,6 @@
 """Multi-device batched solving tests on the virtual 8-device CPU mesh.
 
-The TPU-native analogue of the reference's (nonexistent) distributed
+The on-device analogue of the reference's (nonexistent) distributed
 layer: batched instances shard across a ``jax.sharding.Mesh`` and all
 converge to per-instance solutions (SURVEY.md section 2 "absent" rows).
 """

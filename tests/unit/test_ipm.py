@@ -152,3 +152,49 @@ def test_feasibility_restoration_mechanism():
     # Locally-minimal violation is 1.5 at (x1, x2, x3) = (-1, 0, 0).
     assert th < 1.75, th
     assert abs(float(res.x[0]) - (-1.0)) < 0.35, np.asarray(res.x)
+
+
+def _dot_generals(jaxpr):
+    """Every dot_general equation of a jaxpr, sub-jaxprs included."""
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            yield eqn
+        for param in eqn.params.values():
+            for sub in (param if isinstance(param, (list, tuple))
+                        else (param,)):
+                sub = getattr(sub, "jaxpr", sub)
+                if hasattr(sub, "eqns"):
+                    yield from _dot_generals(sub)
+
+
+def test_mixed_path_traces_f32_matmuls_at_highest_precision():
+    """A GPU may run an f32 matmul at default precision in TF32; every
+    f32 matmul the mixed path traces, through both entry points, must
+    ask for the highest precision."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parents[2] / "examples"))
+    from cart_pole_swing_up import build_functional_problem
+
+    problem = build_functional_problem()
+    problem.settings.console_out_progress = False
+    problem.phases[0].mesh.number_mesh_sections = 2
+    problem.initialise()
+    it = problem.backend.mesh_iterations[0]
+    solver = it.build_solver(IPMOptions(
+        tol=1e-6, max_iter=5, kkt_precision="mixed", dc_floor=1e-7,
+        eval_dtype="f32"))
+    x0 = jnp.asarray(it.xs_guess)
+    theta = jnp.asarray(it.theta_default)
+    cold = jax.make_jaxpr(solver)(x0, theta)
+    m = it.layout.m_total
+    warm = jax.make_jaxpr(solver.warm)(
+        x0, theta, jnp.zeros(m), jnp.ones(it.n_free), jnp.ones(it.n_free),
+        jnp.asarray(1e-3))
+    for closed in (cold, warm):
+        f32 = [e for e in _dot_generals(closed.jaxpr)
+               if any(v.aval.dtype == jnp.float32 for v in e.invars)]
+        assert f32, "the mixed path traced no f32 matmul"
+        for eqn in f32:
+            assert eqn.params["precision"] == (
+                jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST), eqn

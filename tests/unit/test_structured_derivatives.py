@@ -1,6 +1,6 @@
 """Structured (per-node block) derivatives must equal whole-program AD.
 
-This is the TPU build's analogue of the reference's derivative
+This is the analogue of the reference's derivative
 cross-checks (``pycollo/iteration.py:1161-1242`` check-values pattern):
 the block-assembled constraint Jacobian and Lagrangian Hessian are
 compared against ``jax.jacrev`` / ``jax.hessian`` of the monolithic scaled
